@@ -1,6 +1,6 @@
 // marex_host: native host-side runtime kernels for marex_tpu.
 //
-// The TPU owns the array math (XLA/Pallas); these C++ kernels cover the
+// The device owns the array math (XLA); these C++ kernels cover the
 // host-side graph bookkeeping of the tracker's merge march, where the
 // reference relied on Numba-JIT (track.py:4826-5468) and numpy unique/ufunc
 // reductions:
@@ -162,11 +162,10 @@ int64_t marex_lz4_decompress(const uint8_t* src, int64_t src_len,
 // ---------------------------------------------------------------------------
 // Host CCL fast path for the gridded no-merge tracking pipeline.
 //
-// CCL is a pointer-chasing problem: on the TPU the per-slice min-label
-// fixpoint costs ~30 s at production shape (1095 x 720 x 1440) while a
-// run-based single-pass pipeline on the host costs a few seconds on one
-// core — and the binary field ships over the device link bit-packed
-// (142 MB), so the transfer amortises. Semantics replicate
+// CCL is a pointer-chasing problem, which a run-based single-pass pipeline
+// on one host core does well, and the binary field ships over the device
+// link bit-packed (142 MB at 1095 x 720 x 1440), so the transfer can
+// amortise. Semantics replicate
 // ops/label.label_slices_grid (8-connectivity, optional periodic x, dense
 // per-slice ids in ascending min-flat-index order), the area filter
 // (track.py:1755-1906 incl. the drop-first-object quirk of
@@ -469,10 +468,9 @@ int64_t marex_track_nomerge(const uint8_t* bits, int64_t T, int64_t H,
 
 
 // Per-slice CCL over an unstructured neighbour graph on the host — the
-// ICON-scale analogue of marex_track_nomerge's pass A. On the TPU the
-// gather-based per-slice fixpoint costs ~14 s per 16-slice block at 1M
-// cells (gathers are the device's weakest op); host union-find over the
-// active cells costs ~2 s for the whole field. Labels are dense per slice
+// ICON-scale analogue of marex_track_nomerge's pass A: host union-find over
+// the active cells, the alternative to the device's gather-based per-slice
+// fixpoint. Labels are dense per slice
 // (1..n_t, 0 background) in ascending min-cell-index order — the exact
 // convention of ops.label.label_slices_unstructured (reference semantics:
 // scipy csgraph per slice, marEx/track.py:1947-1999). Written int16 so the

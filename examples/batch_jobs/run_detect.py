@@ -5,7 +5,8 @@ Environment knobs mirror the reference's SLURM scripts:
   MAREX_VAR     variable name                           (default "sst")
   MAREX_OUTPUT  output zarr store                       (default extremes.zarr)
   MAREX_PCTL    threshold percentile                    (default 95)
-  MAREX_DEVICES virtual CPU devices when no TPU present (optional)
+  MAREX_DEVICES virtual CPU devices when no GPU present (optional)
+  MAREX_MESH    1 = shard over every visible device     (default 0)
 """
 
 import os
@@ -31,6 +32,7 @@ extremes = marEx.preprocess_data(
     method_extreme=os.environ.get("MAREX_EXTREME", "hobday_extreme"),
     threshold_percentile=float(os.environ.get("MAREX_PCTL", "95")),
     method_percentile="approximate",
+    mesh=True if os.environ.get("MAREX_MESH") == "1" else None,
 )
 
 to_zarr(extremes, os.environ.get("MAREX_OUTPUT", "extremes.zarr"))

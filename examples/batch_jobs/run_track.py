@@ -2,6 +2,7 @@
 
 Production parameter set mirrors the reference submit_track.sh defaults:
 R_fill=12, T_fill=4, area_filter_absolute=600, overlap=0.25, 0.25-deg areas.
+MAREX_MESH=1 shards the tracking over every visible device.
 """
 
 import os
@@ -24,6 +25,7 @@ tr = marEx.tracker(
     allow_merging=True,
     nn_partitioning=True,
     quiet=bool(os.environ.get("MAREX_QUIET")),
+    mesh=True if os.environ.get("MAREX_MESH") == "1" else None,
 )
 events, merges = tr.run(return_merges=True)
 

@@ -5,10 +5,10 @@ Role-equivalent of the reference's gridded example notebooks
 """
 
 import numpy as np
-import pandas as pd
 
 import marex_tpu as marEx
 from marex_tpu import Field, PlotConfig
+from marex_tpu.core.timeaxis import daily_times, decompose_time
 from marex_tpu.io import to_zarr
 
 # ----------------------------------------------------------------------------
@@ -16,10 +16,10 @@ from marex_tpu.io import to_zarr
 # ----------------------------------------------------------------------------
 n_years, ny, nx = 15, 90, 180
 rng = np.random.default_rng(0)
-times = pd.date_range("2000-01-01", periods=int(n_years * 365.25), freq="D").to_numpy()
+times = daily_times("2000-01-01", int(n_years * 365.25))
 lat = np.linspace(-89, 89, ny)
 lon = np.linspace(0, 360, nx, endpoint=False)
-doy = pd.DatetimeIndex(times).dayofyear.to_numpy()
+doy = decompose_time(times).dayofyear
 
 sst = np.broadcast_to(
     15

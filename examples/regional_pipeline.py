@@ -15,20 +15,20 @@ Key differences from the global pipeline:
 """
 
 import numpy as np
-import pandas as pd
 
 import marex_tpu as marEx
 from marex_tpu import Field
+from marex_tpu.core.timeaxis import daily_times, decompose_time
 
 # ----------------------------------------------------------------------------
 # 0. Synthetic regional demo data (EURO-CORDEX-like domain: 27N-72N, 22W-45E)
 # ----------------------------------------------------------------------------
 n_years, ny, nx = 8, 90, 134
 rng = np.random.default_rng(7)
-times = pd.date_range("2010-01-01", periods=int(n_years * 365.25), freq="D").to_numpy()
+times = daily_times("2010-01-01", int(n_years * 365.25))
 lat = np.linspace(27.0, 72.0, ny)
 lon = np.linspace(-22.0, 45.0, nx)
-doy = pd.DatetimeIndex(times).dayofyear.to_numpy()
+doy = decompose_time(times).dayofyear
 
 sst = np.broadcast_to(
     12.0

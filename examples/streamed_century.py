@@ -5,9 +5,9 @@ streamed tracking -> zarr.
 The reference processes datasets far larger than RAM by keeping every stage
 lazy over Dask chunks (README.md:161); MarEx-TPU streams the same pipeline
 through bounded-memory tiles/blocks with bit-identical results. Neither
-stage ever materialises the full dataset: host RSS and device HBM are
+stage ever materialises the full dataset: host RSS and device memory are
 bounded by the tile/block working set, so a 100-year 0.25-degree store
-(~150 GB f32) runs on one 16 GB chip — duration only affects wall time.
+(~150 GB f32) runs on one GPU — duration only affects wall time.
 
 Usage:
     python streamed_century.py /path/to/sst_century.zarr /path/to/output

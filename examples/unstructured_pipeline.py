@@ -7,7 +7,6 @@ table and cell areas instead.
 """
 
 import numpy as np
-import pandas as pd
 from scipy.spatial import Delaunay
 
 import marex_tpu as marEx
@@ -34,8 +33,8 @@ cell_areas = (
 )
 
 n_years = 12
-times = pd.date_range("2000-01-01", periods=int(n_years * 365.25), freq="D").to_numpy()
-doy = pd.DatetimeIndex(times).dayofyear.to_numpy()
+times = daily_times("2000-01-01", int(n_years * 365.25))
+doy = decompose_time(times).dayofyear
 C = len(lat_c)
 sst = (
     15
@@ -93,6 +92,7 @@ print(f"{events.attrs['N_events_final']} events, {events.attrs['total_merges']} 
 # 3. VISUALISE on the native triangulation
 # ----------------------------------------------------------------------------
 from marex_tpu import PlotConfig
+from marex_tpu.core.timeaxis import daily_times, decompose_time
 
 snapshot = events.ID_field.isel(time=-1)
 fig, ax, im = snapshot.plotX(dimensions={"time": "time", "x": "ncells"}).single_plot(

@@ -1,13 +1,13 @@
 """
-MarEx-TPU: TPU-native Marine Extremes Detection and Tracking
-============================================================
+MarEx-TPU: Marine Extremes Detection and Tracking on accelerators
+================================================================
 
 A JAX/XLA-native framework for identifying and tracking marine extremes
 (e.g. Marine Heatwaves) in decadal-to-century daily climate data, on regular
 lat/lon grids and unstructured triangular ocean-model meshes.
 
 Same capability surface as the reference marEx package (detect -> track ->
-visualise), re-designed for TPU hardware: dense device-resident tensors
+visualise), re-designed for accelerators: dense device-resident tensors
 instead of Dask task graphs, jitted XLA kernels instead of Numba, SPMD
 sharding over a device mesh instead of a distributed scheduler.
 
@@ -117,7 +117,7 @@ __all__ = [
     "is_verbose_mode",
     "is_quiet_mode",
     "get_logger",
-    # HPC/TPU helper utilities
+    # HPC helper utilities
     "configure_dask",
     "configure_devices",
 ]

@@ -5,8 +5,7 @@ Equivalent role to the reference's ``marEx/_dependencies.py:15-179``: a single
 place that records which optional packages are importable, raises helpful
 errors when a feature needs one, and reports installation profiles.
 
-The dependency set is TPU-native: the core stack (jax/jaxlib/numpy/pandas/
-scipy) is required; xarray/zarr/dask are *optional interop* layers (the
+The core stack (jax/jaxlib/numpy) is required; xarray/zarr/dask are *optional interop* layers (the
 framework has its own Field container and zarr-lite IO); matplotlib/cartopy/
 pillow gate the plotX subsystem.
 """
@@ -38,7 +37,6 @@ OPTIONAL_DEPENDENCIES: Dict[str, tuple] = {
 REQUIRED_DEPENDENCIES: Dict[str, str] = {
     "jax": "jax",
     "numpy": "numpy",
-    "pandas": "pandas",
 }
 
 INSTALLATION_PROFILES: Dict[str, List[str]] = {

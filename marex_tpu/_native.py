@@ -6,7 +6,7 @@ cached next to the package) and exposes it through ctypes; every entry point
 has a pure-numpy fallback so the framework works without a toolchain.
 Disable with ``MAREX_DISABLE_NATIVE=1``.
 
-The TPU owns the array math; this layer accelerates the host-side graph
+The device owns the array math; this layer accelerates the host-side graph
 bookkeeping of the tracker (overlap-pair aggregation, union-find event
 clustering, in-place label renames) — the role Numba played in the reference
 (track.py:4826-5468).

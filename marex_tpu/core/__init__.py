@@ -15,6 +15,7 @@ from .field import (
 )
 from .timeaxis import (
     TimeIndexInfo,
+    daily_times,
     decompose_time,
     doy_window_indices,
     gather_from_year_doy,
@@ -34,6 +35,7 @@ __all__ = [
     "ones_like",
     "zeros_like",
     "TimeIndexInfo",
+    "daily_times",
     "decompose_time",
     "doy_window_indices",
     "gather_from_year_doy",

@@ -2,7 +2,7 @@
 Lightweight labeled arrays for marex_tpu.
 
 The reference framework exposes its API through xarray + dask
-(``marEx/detect.py``, ``marEx/track.py``). This TPU-native rebuild keeps the
+(``marEx/detect.py``, ``marEx/track.py``). This rebuild keeps the
 *labeled-dimension* programming model but owns the container: a thin,
 immutable-ish :class:`Field` (DataArray-analogue) and :class:`FieldSet`
 (Dataset-analogue) whose payloads are plain ``numpy`` or ``jax.Array`` buffers
@@ -23,7 +23,6 @@ import operator
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
-import pandas as pd
 
 from .._dependencies import has_dependency
 from ..exceptions import DataValidationError
@@ -115,31 +114,32 @@ def _normalize_coords(coords: Optional[Mapping[str, Any]], dims: Tuple[str, ...]
 
 
 class _DtAccessor:
-    """Pandas-backed datetime accessor for a 1-D time coordinate."""
+    """numpy ``datetime64`` accessor for a 1-D time coordinate (the subset of
+    xarray's ``.dt`` the pipeline uses)."""
 
     def __init__(self, field: "Field"):
         self._field = field
-        self._index = pd.DatetimeIndex(_asnumpy(field.values))
+        self._days = _asnumpy(field.values).astype("datetime64[D]")
 
     def _wrap(self, values: np.ndarray) -> "Field":
         f = self._field
-        return Field(np.asarray(values), dims=f.dims, coords=f.coords, name=f.name)
+        return Field(np.asarray(values, dtype=np.int32), dims=f.dims, coords=f.coords, name=f.name)
 
     @property
     def year(self) -> "Field":
-        return self._wrap(self._index.year.to_numpy())
+        return self._wrap(self._days.astype("datetime64[Y]").astype(np.int64) + 1970)
 
     @property
     def month(self) -> "Field":
-        return self._wrap(self._index.month.to_numpy())
+        return self._wrap(self._days.astype("datetime64[M]").astype(np.int64) % 12 + 1)
 
     @property
     def day(self) -> "Field":
-        return self._wrap(self._index.day.to_numpy())
+        return self._wrap((self._days - self._days.astype("datetime64[M]")).astype(np.int64) + 1)
 
     @property
     def dayofyear(self) -> "Field":
-        return self._wrap(self._index.dayofyear.to_numpy())
+        return self._wrap((self._days - self._days.astype("datetime64[Y]")).astype(np.int64) + 1)
 
 
 class Field:

@@ -4,7 +4,7 @@ Calendar utilities and the dense (year, dayofyear) device layout.
 The reference expresses every climatology as a flox groupby over
 ``time.dt.dayofyear`` (``marEx/detect.py:1659,2365``) and the shifting
 baseline as a long-form expansion + 2-key groupby (``detect.py:1622-1669``).
-On TPU the natural formulation is a *dense scatter* of the time axis into a
+On an accelerator the natural formulation is a *dense scatter* of the time axis into a
 ``(n_years, 366, space)`` tensor: every groupby-reduce becomes a masked mean
 over one axis, the rolling climatology becomes a causal windowed mean over the
 year axis, and day-of-year windows become wrapped gathers — all static-shape,
@@ -17,7 +17,6 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
-import pandas as pd
 
 
 @dataclass(frozen=True)
@@ -40,16 +39,24 @@ class TimeIndexInfo:
         return int(len(self.times))
 
 
+def daily_times(start: str, n: int) -> np.ndarray:
+    """``n`` consecutive days from ``start`` as ``datetime64[ns]`` (the dtype
+    xarray and pandas give a daily time coordinate)."""
+    return (np.datetime64(start, "D") + np.arange(n)).astype("datetime64[ns]")
+
+
 def decompose_time(times: np.ndarray) -> TimeIndexInfo:
     """
     Decompose a datetime64 time coordinate into calendar components.
 
-    ``dayofyear`` follows pandas semantics (1..365/366, leap-aware), matching
-    the reference's ``time.dt.dayofyear`` groupby keys.
+    ``dayofyear`` is 1..365/366, leap-aware, as ``time.dt.dayofyear`` gives
+    the reference's groupby keys. Sub-day times count towards their date.
     """
-    idx = pd.DatetimeIndex(np.asarray(times))
-    year = idx.year.to_numpy().astype(np.int32)
-    doy = idx.dayofyear.to_numpy().astype(np.int32)
+    days = np.asarray(times).astype("datetime64[D]")
+    year_start = days.astype("datetime64[Y]")
+    year = (year_start.astype(np.int64) + 1970).astype(np.int32)
+    elapsed = (days - year_start.astype("datetime64[D]")).astype(np.int64)
+    doy = (elapsed + 1).astype(np.int32)
     # Dense year axis (min..max inclusive) so that year-windowed operations are
     # windows over *year values*, exactly as the reference's target-year logic
     # (detect.py:1631), even when the series has gap years.
@@ -57,10 +64,7 @@ def decompose_time(times: np.ndarray) -> TimeIndexInfo:
     year_index = (year - year.min()).astype(np.int32)
 
     # decimal year: year + elapsed_days / year_length (cf. detect.py:2031-2058)
-    start = pd.to_datetime(idx.year.astype(str) + "-01-01")
-    nxt = pd.to_datetime((idx.year + 1).astype(str) + "-01-01")
-    elapsed = (idx - start).days.to_numpy()
-    duration = (nxt - start).days.to_numpy()
+    duration = ((year_start + 1).astype("datetime64[D]") - year_start.astype("datetime64[D]")).astype(np.int64)
     decimal_year = year.astype(np.float64) + elapsed / duration
 
     return TimeIndexInfo(

@@ -1,7 +1,7 @@
 """
 MarEx-TPU Detect: anomalies & extreme-event identification.
 
-TPU-native rebuild of the reference detect engine (``marEx/detect.py``):
+Accelerator-native rebuild of the reference detect engine (``marEx/detect.py``):
 the same four anomaly methods (``detrend_harmonic``, ``shifting_baseline``,
 ``fixed_baseline``, ``detrend_fixed_baseline``), the same two extreme methods
 (``global_extreme``, ``hobday_extreme``) with exact and histogram-approximate
@@ -244,9 +244,8 @@ class _Staged:
     """Device-staged view of the input with calendar decomposition.
 
     ``prefer_flat`` picks the upload layout for HOST payloads (a numpy
-    reshape is free; on-device (T, S) <-> (T, H, W) reshapes are real
-    relayout copies under TPU tiled layouts — 4.8 GB at 0.25-degree
-    production scale): True for paths that need the flat layout (the
+    reshape is free; on-device (T, S) <-> (T, H, W) reshapes can be real
+    relayout copies — 4.5 GB at 0.25-degree production scale): True for paths that need the flat layout (the
     (Y, 366, S) calendar scatters of shifting_baseline / hobday), False
     for the rank-polymorphic fixed/detrend/global programs which then run
     with ZERO relayouts end-to-end. Device-resident payloads always keep
@@ -291,8 +290,8 @@ class _Staged:
             # Already device-resident (e.g. chained from another detect
             # stage): keep the ORIGINAL (T, *spatial) shape. A standalone
             # (T, S) relayout would allocate a full extra copy (4.5 GB at
-            # 0.25 deg production scale — enough to OOM a 16 GB chip); the
-            # fused detect programs flatten in-program instead. The mesh
+            # 0.25 deg production scale); the fused detect programs flatten
+            # in-program instead. The mesh
             # path still needs the flat layout for space sharding.
             self.data = payload.astype(jnp.float32)
             if mesh is not None:
@@ -386,7 +385,7 @@ def preprocess_data(
     ``mesh`` (a ``jax.sharding.Mesh``, or True for an auto mesh over all
     devices) runs the whole stage multi-device: payloads are placed
     space-sharded (``parallel.detect_sharding``) and every kernel executes
-    SPMD — the TPU equivalent of the reference's Dask cluster scale-out
+    SPMD — the device equivalent of the reference's Dask cluster scale-out
     (helper.py:414-639). Equivalent to wrapping the call in
     ``parallel.use_mesh(mesh)``.
 
@@ -721,7 +720,7 @@ def compute_normalised_anomaly(
 def _device_reshape(x: jnp.ndarray, shape: Tuple[int, ...]) -> jnp.ndarray:
     """Zero-copy device reshape: a bare ``x.reshape`` dispatches a program
     that ALLOCATES a new buffer (3.8 GB extra for a century of 0.25 deg
-    anomalies — enough to OOM a 16 GB chip); donating the operand lets XLA
+    anomalies); donating the operand lets XLA
     alias input and output where layouts agree. A no-op when the shape
     already matches (the rank-polymorphic detect programs preserve the
     gridded layout end-to-end, so this is the common case)."""

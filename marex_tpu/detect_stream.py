@@ -7,7 +7,7 @@ datasets "100-1000x larger than available RAM" (``/root/reference/README.md:161`
 (``detect.py:1944-1953``) and the histogram path re-chunks to small spatial
 tiles with the full time axis (``detect.py:2617-2631``).
 
-This module is the TPU-native counterpart: the input zarr store is opened
+This module is the device counterpart: the input zarr store is opened
 LAZILY (:class:`~marex_tpu.io.zarr_lite.LazyZarrArray`), latitude-row tiles
 (with hobday spatial-window halos) stream through the exact same fused XLA
 detect programs used by :func:`marex_tpu.detect.preprocess_data`, and each

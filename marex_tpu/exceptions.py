@@ -4,7 +4,7 @@ Exception hierarchy for marex_tpu.
 Mirrors the error-surface of the reference implementation
 (``marEx/exceptions.py:11-494``): a rich base exception carrying structured
 ``details`` / ``suggestions`` / ``context`` payloads plus typed subclasses and
-factory helpers. The hierarchy is re-designed here for a TPU-native runtime
+factory helpers. The hierarchy is re-designed here for an accelerator runtime
 (no Dask; errors may also surface from XLA compilation or device placement).
 """
 
@@ -147,7 +147,7 @@ class VisualisationError(MarExError):
 
 
 class DeviceError(MarExError):
-    """TPU/accelerator placement or compilation failure (marex_tpu-specific)."""
+    """Accelerator placement or compilation failure (marex_tpu-specific)."""
 
     default_error_code = "DEVICE_ERROR"
 

@@ -17,12 +17,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import zlib
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
-import pandas as pd
 
 from .._dependencies import has_dependency
 from ..core.field import Coord, Field, FieldSet
@@ -541,28 +541,58 @@ def _read_array(apath: str, lazy: bool = False) -> Tuple[Any, List[str], Dict[st
     return np.asarray(handle), dims, attrs
 
 
+# nanoseconds per CF time unit, and the decimals a fractional count keeps
+# before it is scaled (the rounding pandas.to_timedelta applies)
+_CF_UNIT_NS = {
+    "nanoseconds": (1, 0),
+    "microseconds": (10**3, 3),
+    "milliseconds": (10**6, 6),
+    "seconds": (10**9, 9),
+    "minutes": (60 * 10**9, 10),
+    "hours": (3600 * 10**9, 12),
+    "days": (86400 * 10**9, 13),
+}
+
+_CF_EPOCH = re.compile(
+    r"^(-?\d{1,4})-(\d{1,2})-(\d{1,2})"
+    r"(?:[ T](\d{1,2}):(\d{1,2})(?::(\d{1,2})(?:\.(\d{0,9}))?)?)?"
+    r"\s*(?:Z|UTC|[+-]00:?00)?$"
+)
+
+
+def _parse_cf_epoch(text: str) -> np.datetime64:
+    """The reference date of a CF ``units`` string ("days since 1850-1-1",
+    "hours since 1970-01-01 00:00:00", ...) as ``datetime64[ns]``."""
+    m = _CF_EPOCH.match(text.strip())
+    if m is None:
+        raise ValueError(f"unparsable CF epoch {text!r}")
+    y, mo, d, hh, mm, ss, frac = m.groups()
+    day = np.datetime64(f"{int(y):04d}-{int(mo):02d}-{int(d):02d}", "D").astype("datetime64[ns]")
+    ns = (int(hh or 0) * 3600 + int(mm or 0) * 60 + int(ss or 0)) * 10**9 + int((frac or "").ljust(9, "0"))
+    return day + np.timedelta64(ns, "ns")
+
+
 def _decode_cf_time(arr: np.ndarray, attrs: Dict[str, Any]) -> np.ndarray:
     units = attrs.get("units", "")
     if not isinstance(units, str) or " since " not in units:
         return arr
     unit, _, epoch = units.partition(" since ")
-    unit_map = {
-        "nanoseconds": "ns",
-        "microseconds": "us",
-        "milliseconds": "ms",
-        "seconds": "s",
-        "minutes": "m",
-        "hours": "h",
-        "days": "D",
-    }
-    pd_unit = unit_map.get(unit.strip().lower())
-    if pd_unit is None:
+    scale = _CF_UNIT_NS.get(unit.strip().lower())
+    if scale is None:
         return arr
+    mult, decimals = scale
     try:
-        origin = pd.Timestamp(epoch.strip())
-        return (origin + pd.to_timedelta(arr.astype("float64"), unit=pd_unit)).to_numpy()
-    except Exception:
+        origin = _parse_cf_epoch(epoch)
+    except ValueError:
         return arr
+    vals = np.asarray(arr, dtype=np.float64)
+    finite = np.isfinite(vals)
+    v = np.where(finite, vals, 0.0)
+    base = v.astype(np.int64)  # truncation toward zero, then the fraction
+    frac = np.round(v - base, decimals) if decimals else v - base
+    ns = base * mult + (frac * mult).astype(np.int64)
+    out = origin + ns.astype("timedelta64[ns]")
+    return np.where(finite, out, np.datetime64("NaT", "ns"))
 
 
 def open_zarr(path: str, chunks: Optional[Dict[str, int]] = None, lazy: Optional[bool] = None) -> FieldSet:

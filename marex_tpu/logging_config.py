@@ -6,7 +6,7 @@ Provides the same operational surface as the reference
 (``MAREX_LOG_LEVEL/LOG_FILE/VERBOSE/QUIET``), three verbosity modes with
 distinct formats, a rotating file handler, timing context managers that also
 snapshot process memory, progress helpers, and a function-call decorator.
-Additions for the TPU runtime: device-memory snapshots via
+Additions for the device runtime: device-memory snapshots via
 ``jax.local_devices()[i].memory_stats()`` and an optional JAX profiler trace
 wrapper.
 """
@@ -196,7 +196,7 @@ def get_memory_usage() -> dict:
 
     Same keys as the reference's ``get_memory_usage``
     (``marEx/logging_config.py:246-263``): ``rss_mb``, ``vms_mb``,
-    ``percent``, ``available_mb``; plus a TPU-native addition
+    ``percent``, ``available_mb``; plus a device addition
     ``device_mb`` (in-use accelerator bytes summed over local devices,
     0.0 when the backend reports no stats).
     """
@@ -305,7 +305,7 @@ log_array_info = log_dask_info
 @contextmanager
 def profile_trace(log_dir: str) -> Iterator[None]:
     """
-    JAX profiler trace wrapper (TPU-native replacement for the Dask dashboard).
+    JAX profiler trace wrapper (the replacement for the Dask dashboard).
 
     Produces a trace viewable in TensorBoard / Perfetto.
     """

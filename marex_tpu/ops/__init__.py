@@ -1,4 +1,4 @@
-"""Device kernels (jit/pallas) for marex_tpu."""
+"""Device kernels (jitted XLA programs) for marex_tpu."""
 
 from . import climatology, detrend, label, morphology, overlap, partition, properties, quantile  # noqa: F401
 

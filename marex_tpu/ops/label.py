@@ -1,7 +1,7 @@
 """
 Connected-component labeling (CCL) as fixed-point min-label propagation.
 
-TPU-native replacement for the reference's labeling substrate:
+Device replacement for the reference's labeling substrate:
 
 * per-timestep 2-D labeling with 8-connectivity and periodic longitude
   <- dask_image.ndmeasure.label(structure 2-D, wrap_axes=(2,))
@@ -12,25 +12,26 @@ TPU-native replacement for the reference's labeling substrate:
   <- scipy csgraph connected_components per slice (track.py:1947-1999)
 
 Algorithm: every active cell starts labeled with its own flat index, then a
-fused 3x3(x3) neighbourhood-min stencil (7.8 ms per iteration on a 105M-cell
-block) iterates to a fixpoint inside one lax.while_loop, accelerated by two
-gather-free long-range mechanisms:
+fused 3x3(x3) neighbourhood-min stencil iterates to a fixpoint inside one
+lax.while_loop, accelerated by two gather-free long-range mechanisms:
 
 * segmented-min sweeps (lax.associative_scan) flood whole active runs along
   an axis in one O(log n) pass — along time every 3-D iteration (event
   durations dominate diameters) and along y/x every 2nd iteration;
 * every ``jump_every`` iterations a pointer-jumping pass
-  (label <- label[label]) compresses remaining pathological paths — jumps
-  are gathers, measured ~250x the stencil cost on TPU, so they stay rare.
+  (label <- label[label]) compresses remaining pathological paths; jumps
+  are full-field gathers, so they stay rare.
 
 Labels are then densified to 1..N by a rank-over-roots cumsum (on device).
 
-A hand-written Pallas stencil (ops/pallas_kernels.py) was profiled against
-the XLA 9-slice stencil on a v5e chip and DROPPED from this hot path: the
-fused XLA stencil already saturates HBM bandwidth (full-CCL wall identical,
-2.99 s on a 105M-cell block), the Pallas step measured ~35 ms vs the fused
-pass, and Mosaic failed to lower time blocks >= 16. The kernel file remains
-as a documented experiment.
+The stencil step is plain XLA: the 9-way min of shifted slices, the pad and
+the mask fuse into one elementwise kernel. On an NVIDIA H100 80GB HBM3 at a
+700 W power limit, one masked iteration over a (16, 720, 1440) block
+(16.6M cells; int32 read + bool read + int32 write = 149 MB) took 166.6 us:
+896 GB/s, 26.8% of the card's 3.35 TB/s (chip_smoke.py phase 3). A
+hand-written kernel could only win by keeping several fixpoint iterations
+in shared memory (temporal blocking), a question for when a trace puts the
+fixpoint on top.
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ def _min_pool_3x3(lab: jax.Array, wrap_x: bool) -> jax.Array:
     3x3 neighbourhood min over the trailing (H, W) axes of a (T, H, W) label
     map (out-of-range = _BIG; periodic in x when ``wrap_x``) — expressed as a
     9-way elementwise min of shifted views, which XLA fuses into one stencil
-    pass on TPU and vectorises on CPU (lax.reduce_window is scalar-slow on
-    the CPU backend).
+    pass on the accelerator and vectorises on CPU (lax.reduce_window is
+    scalar-slow on the CPU backend).
     """
     T, H, W = lab.shape
     x = _pad_spatial(lab, wrap_x)
@@ -130,10 +131,10 @@ def _sweep_xy(lab: jax.Array, active: jax.Array, wrap_x: bool) -> jax.Array:
 def _jump(lab_flat: jax.Array) -> jax.Array:
     """One pointer-jumping hop on (..., N) flat labels (BIG = inactive).
 
-    Gathers are ~250x more expensive than the stencil min on TPU (measured
-    1.95 s vs 7.8 ms per iteration on a 105M-cell block), so callers invoke
-    this only every ``jump_every`` iterations — a fast path for typical blob
-    diameters with a logarithmic escape hatch for pathological filaments."""
+    A hop is a full-field gather, dearer than a stencil pass, so callers
+    invoke this only every ``jump_every`` iterations — a fast path for
+    typical blob diameters with a logarithmic escape hatch for pathological
+    filaments."""
     idx = jnp.where(lab_flat == _BIG, 0, lab_flat)
     hopped = jnp.take_along_axis(lab_flat, idx, axis=-1)
     return jnp.where(lab_flat == _BIG, _BIG, jnp.minimum(lab_flat, hopped))
@@ -154,7 +155,7 @@ def _roots_fixpoint_block(data: jax.Array, wrap_x: bool, max_iters: int, jump_ev
         m = jnp.where(data, _min_pool_3x3(lab, wrap_x), _BIG)
         # long-range run sweeps: every 2nd iteration, propagate along whole
         # active rows/columns in one pass (bounds iterations by shape
-        # complexity instead of blob diameter; measured optimum on TPU)
+        # complexity instead of blob diameter)
         m = jax.lax.cond(
             (it % 2) == 1,
             lambda x: _sweep_xy(x, data, wrap_x),
@@ -179,25 +180,23 @@ def _roots_fixpoint_block(data: jax.Array, wrap_x: bool, max_iters: int, jump_ev
     return lab.reshape(TB, H * W)
 
 
-# Largest per-block cell count for the fixpoint programs. Above ~60M cells
-# the composed while+cond+scan program MISCOMPILES on the TPU backend:
-# slices near the end of a (64, 720, 1440) block converge to labels that
-# differ from the same slice labeled alone (verified op-by-op: min-pool and
-# both segmented sweeps are each correct in isolation at that shape), which
-# degrades the sweep acceleration (41 observed fixpoint iterations vs 5) and
-# at full production shape (1095 x 720 x 1440) crashes the TPU worker
-# outright ("kernel fault"). Blocks up to ~17M cells (64 x 360 x 720, the
-# r02 bench shape) are verified correct; 16M keeps a safety margin while
-# still saturating the chip.
+# Largest per-block cell count for the fixpoint programs: 16 slices of
+# 720 x 1440 at the production shape. At that block size on an H100 the
+# per-slice labels of a 1095 x 720 x 1440 field equal the host C++
+# labeller's bit for bit, and merge tracking equals the per-step march
+# (chip_smoke.py phases 3-4). The bound was first set to dodge a compiler
+# fault of the previous accelerator at ~60M-cell blocks; whether larger
+# blocks pay on the GPU is not measured yet.
 _BLOCK_CELL_BUDGET = 16 * 1024 * 1024
 
 
 def _map_time_blocks(fn, data: jax.Array, time_block: int):
     """Apply ``fn`` ((TB, H, W) block -> pytree) over time blocks via lax.map
-    (scan, not vmap, so Pallas kernels inside lower unchanged); the time axis
+    (scan, not vmap, so each block's while_loop stops at its own iteration
+    count and intermediates stay one block in size); the time axis
     is padded with inactive slices to a block multiple. ``time_block`` is an
     upper bound — the effective block is clamped so a block never exceeds
-    ``_BLOCK_CELL_BUDGET`` cells (see the miscompile note above)."""
+    ``_BLOCK_CELL_BUDGET`` cells."""
     T = data.shape[0]
     cells_per_slice = int(np.prod(data.shape[1:]))
     tb = min(time_block, T, max(1, _BLOCK_CELL_BUDGET // max(cells_per_slice, 1)))
@@ -377,11 +376,8 @@ def label_slices_unstructured(
 
     Above a handful of blocks the time blocks are looped on the HOST with
     one shared compiled per-block program instead of a fused
-    lax.map(while_loop) program: at ICON scale (730 x 1M cells, 46 blocks)
-    the fused composition crashes the TPU worker outright ("kernel fault" —
-    the same class of backend miscompile as ops.label._BLOCK_CELL_BUDGET
-    documents for the gridded fixpoint), while the identical per-block
-    program runs fine block by block. Costs ~one dispatch per block.
+    lax.map(while_loop) program, so the label field is assembled into one
+    donated accumulator block by block. Costs ~one dispatch per block.
     """
     T, C = data.shape
     tb = min(time_block, T, max(1, _BLOCK_CELL_BUDGET // max(C, 1)))
@@ -425,8 +421,7 @@ offset_labels_across_time.__doc__ = """
 
 # In-place variant for the tracking hot path: at production shape the label
 # field is ~4.5 GB, so aliasing the output onto the (never reused) input
-# halves this step's HBM peak — the difference between the two-level CCL
-# fitting a 16 GB chip at 1095x720x1440 and exhausting it.
+# halves this step's device-memory peak.
 offset_labels_donated = jax.jit(_offset_labels_impl, donate_argnums=(0,))
 
 
@@ -442,9 +437,8 @@ def select_labels(labels: jax.Array, keep: jax.Array, n_labels: int) -> jax.Arra
     """
     Per-slice label filter: ``out[t, c] = keep[t, labels[t, c]]`` computed as
     an unrolled compare-OR over the (small) label range instead of a flat
-    gather — on TPU a 105M-element gather costs ~1.1 s while n_labels fused
-    elementwise passes cost ~5 ms each, so this wins whenever the per-slice
-    object count is modest (callers fall back to take_along_axis otherwise).
+    gather: n_labels fused elementwise passes, for modest per-slice object
+    counts (callers fall back to take_along_axis otherwise).
 
     labels : (T, S) int32 per-slice dense labels (0 = background)
     keep   : (T, n_labels + 1) bool
@@ -464,7 +458,7 @@ def label_slices_grid_roots(
     Per-timestep 2-D CCL returning RAW root labels (each component labeled by
     its minimum flat index; _BIG = background) plus per-slice counts — i.e.
     :func:`label_slices_grid` without the densification pass, whose
-    rank-lookup is a flat 105M-element gather (~1.1 s on TPU). Callers that
+    rank-lookup is a flat full-field gather. Callers that
     only need per-object reductions can stay in root space (see
     :func:`extract_root_areas` / :func:`apply_root_keep`). Tiled over
     ``time_block`` slices like :func:`label_slices_grid`.
@@ -578,8 +572,7 @@ def densify_spacetime_roots(labf: jax.Array, n_pad: int) -> jax.Array:
     Gather-free dense relabel of 3-D root labels: the component's dense id is
     the number of root values <= its own root. The (<= n_pad) sorted roots
     come from one top_k pass and the rank is a fused broadcast
-    compare+reduce — measured 0.48 s vs 1.67 s for the cumsum+flat-gather
-    densification on a 105M-cell block (n_pad = 256).
+    compare+reduce instead of the cumsum+flat-gather densification.
 
     labf : (N,) int32 converged root labels (_BIG = background)
     returns (N,) int32 dense labels in 1..n (0 = background)
@@ -622,10 +615,10 @@ def slice_root_stats_sorted(root_flat: jax.Array, n_max: int, time_block: int = 
     no-object-cap replacement for the trace-time unrolled
     :func:`extract_root_areas`/:func:`apply_root_keep` chain beyond its
     ~64-object sweet spot (the reference's np.unique path,
-    track.py:1785-1806, at TPU-native cost). Processed in ``time_block``
-    row tiles via lax.map so intermediate memory stays bounded at
-    production scale (a full-width sort of a century of 0.25 deg labels
-    would hold ~6 full-size temporaries and OOM a 16 GB chip).
+    track.py:1785-1806). Processed in ``time_block`` row tiles via lax.map
+    so intermediate memory stays bounded at production scale (a full-width
+    sort of a century of 0.25 deg labels would hold ~6 full-size
+    temporaries).
 
     root_flat : (T, S) int32 converged root labels (_BIG = background)
 

@@ -4,7 +4,7 @@ Fully on-device merge march for both grid types (gridded and unstructured).
 The split/merge march of the reference (track.py:3337-3802) is inherently
 sequential over timesteps: each step consolidates the previous slice against
 the one before it, then iteratively partitions every multi-parent child of
-the current slice. The previous TPU design batched each step's work into
+the current slice. The previous design batched each step's work into
 device programs but still walked timesteps on the host, paying one or more
 host<->device roundtrips per merge-active step — the dominant cost on a
 high-latency device link (hundreds of dispatches at ~30 ms each).
@@ -114,9 +114,8 @@ def _extract_pairs_local(prev_loc: jax.Array, cur_loc: jax.Array, MP: int, strid
     key = jnp.where(both, a * stride + b, _IMAX)
     # One sort is the whole O(S) cost. Everything downstream is MP-sized:
     # run boundaries of the sorted keys are located with searchsorted over
-    # the (nondecreasing) run-id array, so no 1M-update scatter and no
-    # full-field gather survives — measured 45 ms -> ~15 ms per slice pair
-    # at 720x1440 on a v5e-class chip (the march's zero-merge floor).
+    # the (nondecreasing) run-id array, so no full-field scatter or gather
+    # survives.
     if cell_w is None:
         ks = jax.lax.sort(key)
         ws = None
@@ -127,7 +126,9 @@ def _extract_pairs_local(prev_loc: jax.Array, cur_loc: jax.Array, MP: int, strid
     first = jnp.concatenate([jnp.ones((1,), bool), ks[1:] != ks[:-1]])
     first = jnp.logical_and(first, valid)
     rid = jnp.cumsum(first.astype(jnp.int32)) - 1  # run id per element
-    rid = jnp.where(valid, rid, MP)  # nondecreasing: invalids sort last
+    # runs past the MP slots share the drop index MP with the invalid tail,
+    # so rid stays nondecreasing and indices_are_sorted below holds
+    rid = jnp.where(valid, jnp.minimum(rid, MP), MP)
     n_runs = jnp.sum(first.astype(jnp.int32))
 
     sl = jnp.arange(MP, dtype=jnp.int32)
@@ -452,7 +453,9 @@ def _partition_batch(
         one_hot = jnp.logical_and(
             lane_sel[None] == jnp.arange(LN)[:, None, None], in_child[None]
         ).reshape(LN, -1)
-        comps_lane = jnp.einsum("ls,cs->lc", one_hot.astype(jnp.float32), wall)  # (LN, 6)
+        comps_lane = jnp.einsum(
+            "ls,cs->lc", one_hot.astype(jnp.float32), wall, precision=jax.lax.Precision.HIGHEST
+        )  # (LN, 6)
 
         pcomps = (
             jnp.zeros((K * P + 1, 6), jnp.float32)
@@ -587,7 +590,9 @@ def _partition_batch_unstr(
     zero = jnp.zeros_like(a)
     wall = jnp.stack([a, a * cl * jnp.cos(lon), a * cl * jnp.sin(lon), a * jnp.sin(lat), zero, zero])  # (6, C)
     one_hot = jnp.logical_and(lane_sel[None] == jnp.arange(LN)[:, None], in_child[None])  # (LN, C)
-    comps_lane = jnp.einsum("ls,cs->lc", one_hot.astype(jnp.float32), wall)  # (LN, 6)
+    comps_lane = jnp.einsum(
+        "ls,cs->lc", one_hot.astype(jnp.float32), wall, precision=jax.lax.Precision.HIGHEST
+    )  # (LN, 6)
 
     pcomps = (
         jnp.zeros((K * P + 1, 6), jnp.float32)
@@ -1139,9 +1144,9 @@ map_to_global_donated = jax.jit(map_to_global, donate_argnums=(0,))
 def map_to_global_blocked(labels: jax.Array, gmap: jax.Array, time_block: int = 64) -> jax.Array:
     """:func:`map_to_global` computed per time block into an in-place output
     carry: the monolithic batched gather's working set (int16 label stack +
-    int32 index temp + int32 output ~ 11 GB at production shape) is more
-    than a 16 GB chip can stage next to the live pipeline buffers; blockwise
-    execution bounds the transient to one block (~0.5 GB). Used for the
+    int32 index temp + int32 output ~ 11 GB at production shape) would sit
+    next to the live pipeline buffers; blockwise execution bounds the
+    transient to one block (~0.5 GB). Used for the
     int16 stack (which the donated variant cannot alias anyway)."""
     T = labels.shape[0]
     tb = min(time_block, T)

@@ -1,7 +1,7 @@
 """
 Binary morphology kernels (device, jit-friendly).
 
-TPU-native equivalents of the reference's morphological preprocessing:
+Device equivalents of the reference's morphological preprocessing:
 
 * structured closing/opening with a disk structuring element and periodic
   (or edge) padding            <- dask_image.ndmorph binary_closing/opening
@@ -13,10 +13,10 @@ TPU-native equivalents of the reference's morphological preprocessing:
                                   (track.py:1542-1606, 5422-5468)
 
 Dilation/erosion decompose the disk into per-row runs evaluated as fused
-shifted OR/AND passes (a single-channel kxk conv cannot tile onto the MXU;
-the run decomposition is bandwidth-bound on the VPU and ~10x faster); the
-neighbour-graph version is an iterated gather-or, the graph analogue of a
-stencil.
+shifted OR/AND passes (a single-channel boolean kxk conv has no matrix
+unit to use; the run decomposition is a few fused bandwidth-bound
+passes); the neighbour-graph version is an iterated gather-or, the graph
+analogue of a stencil.
 """
 
 from __future__ import annotations
@@ -68,9 +68,8 @@ def _dilate_disk(x: jax.Array, radius: int, fill: bool = False) -> jax.Array:
     Boolean dilation of a (T, H, W) stack by ``disk_kernel(radius)`` expressed
     as row runs: the disk is the union over dy of a centred x-run of
     half-width isqrt(R^2 - dy^2), so dilation = OR over dy-shifts of 1-D
-    x-dilations.  Purely elementwise shifted ORs — the TPU-friendly
-    formulation (a single-channel kxk conv cannot tile onto the MXU, and the
-    VPU does this in a handful of fused bandwidth-bound passes).
+    x-dilations.  Purely elementwise shifted ORs, which XLA runs as a
+    handful of fused bandwidth-bound passes.
     """
     # distinct row half-widths, ascending, with incremental reuse:
     # dilating an already h0-dilated row by (h1 - h0) yields the h1 dilation

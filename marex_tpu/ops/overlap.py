@@ -1,7 +1,7 @@
 """
 Temporal overlap-graph kernels.
 
-TPU-native replacement for the reference's per-slice overlap extraction
+Device replacement for the reference's per-slice overlap extraction
 (``check_overlap_slice`` track.py:2396-2452) and global aggregation
 (``find_overlapping_objects`` track.py:2454-2504): for each pair of
 consecutive timesteps, the (parent id, child id, overlap weight) list is

@@ -1,7 +1,7 @@
 """
 Child-object partitioning kernels for split/merge tracking.
 
-TPU-native re-design of the reference's Numba partitioning kernels
+Device re-design of the reference's Numba partitioning kernels
 (track.py:4826-5419):
 
 * ``wrapped_euclidian_distance_mask_parallel``  -> dense wrapped-distance
@@ -285,7 +285,7 @@ def partition_children_unstructured_batched(
     """
     Batched unstructured child partitioning + per-piece spherical props in
     one program — the mesh analogue of :func:`partition_children_grid_batched`
-    and the true TPU counterpart of the reference's batched parallel
+    and the device counterpart of the reference's batched parallel
     split/merge (track.py:3804-4814). The BFS runs to the static ``hop_cap``
     (batch maximum, bucketed by the caller) and each child's own cap is
     enforced by masking, which is semantics-identical to per-child BFS caps.

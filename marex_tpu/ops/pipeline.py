@@ -51,11 +51,8 @@ def _doy_nanmean_direct(
     of a full (T, *spatial) copy. Equivalent to the dense ``(Y, 366, S)``
     scatter + ``nanmean_over_years`` (each (doy, point) accumulates its
     <= Y samples either way); the peak intermediate drops from
-    (T, S)+(Y, 366, S) to 2x(366, *spatial) + one block — the difference
-    between the production-resolution in-memory detect fitting one 16 GB
-    chip and not. Rank-polymorphic in the trailing dims so gridded data
-    never pays a (T, S) relayout copy (TPU tiled layouts make reshape a
-    real HBM copy).
+    (T, S)+(Y, 366, S) to 2x(366, *spatial) + one block. Rank-polymorphic
+    in the trailing dims so gridded data never pays a (T, S) relayout copy.
     """
     T = data.shape[0]
     sp = data.shape[1:]
@@ -109,12 +106,10 @@ def anomaly_program(
     Fused anomaly computation for all four methods.
 
     data : (T, S) float32 — or (T, *spatial). The fixed_baseline and
-        detrend paths are rank-polymorphic and PRESERVE the input layout:
-        on TPU a (T, S) <-> (T, H, W) reshape is a real relayout copy
-        (tiled layouts; 4.8 GB at 0.25-degree production scale), and
-        avoiding it is what lets the production-resolution in-memory
-        detect fit one 16 GB chip. Only shifting_baseline flattens (its
-        (Y, 366, S) rolling-window scatter requires the flat layout).
+        detrend paths are rank-polymorphic and PRESERVE the input layout,
+        so no (T, S) <-> (T, H, W) relayout copy (4.5 GB at 0.25-degree
+        production scale) is ever made. Only shifting_baseline flattens
+        (its (Y, 366, S) rolling-window scatter requires the flat layout).
     year_idx/doy_idx : (T,) int32 (doy 0-based)
     clim_time_mask : (T,) bool — timesteps contributing to the fixed
         climatology (reference_period support; all-True otherwise)
@@ -135,8 +130,7 @@ def anomaly_program(
 
         # every step is pointwise in space, so tile over columns when the
         # dense (Y, 366, S) intermediates get large: the rolling-climatology
-        # program holds ~6 of them concurrently, which at 8 yr x 360x720
-        # already exceeds a 16 GB chip (measured 17.4 GB HBM requirement).
+        # program holds ~6 of them concurrently.
         # Budget: <=64M cells per (Y, 366, sc) chunk -> chunk working set
         # ~2 GB; accumulate into a preallocated output via in-place loop
         # carry (no stacked/concat copies). The final chunk's start is
@@ -174,8 +168,7 @@ def anomaly_program(
 # Input-donating variant: the anomaly output aliases the input buffer, so
 # the raw block and the anomalies (4.5 GB EACH at 0.25-degree production
 # shape) are never concurrently live. Used whenever the staged payload is
-# private (host inputs) or the caller passed donate_input=True — the detect
-# peak decides whether the pipeline fits the chip's share of a shared pool.
+# private (host inputs) or the caller passed donate_input=True.
 anomaly_program_donated = jax.jit(
     anomaly_program.__wrapped__, static_argnames=_ANOM_STATIC, donate_argnums=(0,)
 )
@@ -245,7 +238,7 @@ def global_extreme_program(
     Rank-polymorphic: ``anomalies`` may be (T, S) or (T, *spatial); the
     input layout is PRESERVED (extremes shaped like the input, thresholds
     shaped like one timestep) so gridded data never pays a (T, S) relayout
-    copy on TPU."""
+    copy."""
     if exact:
         thr = _quant.exact_quantile_time(anomalies, q)
         pre_min = jnp.nanmin(thr)

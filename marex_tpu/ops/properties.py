@@ -1,7 +1,7 @@
 """
 Per-object property kernels: areas & centroids via segment reductions.
 
-TPU-native replacement for skimage ``regionprops_table`` per slice
+Device replacement for skimage ``regionprops_table`` per slice
 (track.py:2332-2390) and the unstructured spherical-centroid accumulation
 (track.py:2159-2250): one scatter-add pass per quantity, vectorised over the
 whole (time, space) block, with the reference's periodic-longitude centroid
@@ -49,8 +49,8 @@ def label_sums(labels: jax.Array, weights: jax.Array, n_labels: int) -> jax.Arra
     Segment-sum of ``weights`` by label.
 
     labels : (T, *spatial) int32 in [0, n_labels] — rank-polymorphic: 3-D
-        grid fields are flattened PER BLOCK (a whole-field (T, S) reshape is
-        a real relayout copy on TPU, ~4.5 GB at production shape)
+        grid fields are flattened PER BLOCK (a whole-field (T, S) reshape can
+        be a relayout copy, ~4.5 GB at production shape)
     weights : (S,) flat per-cell, or (T, *spatial) float32
     returns (T, n_labels + 1) — index 0 is background.
     """
@@ -62,8 +62,8 @@ def label_sums(labels: jax.Array, weights: jax.Array, n_labels: int) -> jax.Arra
     per_cell = weights.ndim == 1
     weights = weights.astype(jnp.float32)
     if n_labels <= 96:
-        # small label ranges: one fused compare+reduce pass per label (~5 ms
-        # each on TPU) beats a 105M-update scatter-add (~1 s)
+        # small label ranges: one fused compare+reduce pass per label in
+        # place of a full-field scatter-add
         wbc = weights.reshape(sp)[None] if per_cell else weights
         red = tuple(range(1, labels.ndim))
         cols = [
@@ -118,17 +118,14 @@ def event_global_id_lookup(old_flat: jax.Array, lookup: jax.Array, n_events: int
     ``lookup[old]`` instead of passed as a second full-size field. The
     cluster-rename stage uses this to build the (time, ID) table BEFORE the
     full-field remap, so the remap can donate the old-id buffer — at
-    production shape that removes a 4.5 GB concurrent allocation, the
-    difference between merge-mode tracking fitting a 16 GB chip and
-    RESOURCE_EXHAUSTED (observed round 5, config 4 at 1095x720x1440).
+    production shape that removes a 4.5 GB concurrent allocation.
     """
     T = old_flat.shape[0]
     tb = min(time_block, T)
 
     if n_events <= 64:
-        # unrolled compare+max: a TPU scatter-max over (tb, S) costs ~20 s
-        # at production shape (measured round 5), while n_events fused
-        # compare+reduce passes cost ~10 ms each — the same trade as
+        # unrolled compare+max: n_events fused compare+reduce passes in
+        # place of a scatter-max over (tb, S) — the same trade as
         # label.select_labels
         def blk(ofb):
             ofb = ofb.reshape(ofb.shape[0], -1)
@@ -184,7 +181,7 @@ def grid_label_comps(labels: jax.Array, n_labels: int) -> jax.Array:
 
         def per_label(_, lbl):
             m = (lfb == lbl).astype(jnp.float32)
-            return None, jnp.einsum("ks,ts->tk", wall, m)
+            return None, jnp.einsum("ks,ts->tk", wall, m, precision=jax.lax.Precision.HIGHEST)
 
         _, out = jax.lax.scan(per_label, None, jnp.arange(n_labels + 1, dtype=jnp.int32))
         return jnp.moveaxis(out, 0, 1)
@@ -216,7 +213,7 @@ def unstructured_label_comps(
     def block(lfb):
         def per_label(_, lbl):
             m = (lfb == lbl).astype(jnp.float32)
-            return None, jnp.einsum("ks,ts->tk", wall, m)
+            return None, jnp.einsum("ks,ts->tk", wall, m, precision=jax.lax.Precision.HIGHEST)
 
         _, out = jax.lax.scan(per_label, None, jnp.arange(n_labels + 1, dtype=jnp.int32))
         return jnp.moveaxis(out, 0, 1)
@@ -271,7 +268,7 @@ def grid_label_props(
 
             def per_label(_, lbl):
                 m = (lfb == lbl).astype(jnp.float32)  # (TB, S)
-                sums = jnp.einsum("ks,ts->tk", wall, m)  # (TB, 6)
+                sums = jnp.einsum("ks,ts->tk", wall, m, precision=jax.lax.Precision.HIGHEST)  # (TB, 6)
                 return None, sums
 
             _, out = jax.lax.scan(per_label, None, jnp.arange(n_labels + 1, dtype=jnp.int32))

@@ -1,7 +1,7 @@
 """
 Quantile / threshold kernels (exact and histogram-approximate).
 
-TPU-native re-design of the reference's percentile machinery:
+Device re-design of the reference's percentile machinery:
 
 * exact global threshold          <- da.quantile            (detect.py:2887-2899)
 * exact hobday (day-of-year)      <- per-chunk nanpercentile (detect.py:1921-1956)
@@ -302,10 +302,9 @@ def hobday_thresholds_exact(data_ymd: jax.Array, q: float, window_days: int, doy
 # ----------------------------------------------------------------------------
 
 
-# HBM budget for the (366, S_tile, nbins) histogram intermediate; above this
-# the space axis is processed in spatial tiles under lax.map. ~2-3 copies of
-# one tile are live inside the rolling-sum chain, so the budget is set well
-# below the chip's HBM.
+# Device-memory budget for the (366, S_tile, nbins) histogram intermediate;
+# above this the space axis is processed in spatial tiles under lax.map.
+# ~2-3 copies of one tile are live inside the rolling-sum chain.
 _HIST_TILE_BYTES = 1 << 29
 
 
@@ -359,8 +358,7 @@ def hobday_thresholds_approx(
         halo = (window_spatial // 2) if (window_spatial is not None and window_spatial > 1) else 0
         cell_bytes = D * nbins * 4
         # the ACTUAL tile buffer includes the halo band — budgeting only the
-        # core rows under-counted 3x at production widths (and OOMed a 16 GB
-        # chip at 8yr x 360 x 720)
+        # core rows under-counts 3x at production widths
         budget_cells = max(1, _HIST_TILE_BYTES // cell_bytes)
         tile_rows = budget_cells // nx - 2 * halo
 
@@ -460,8 +458,8 @@ def global_thresholds_approx(
     computed WITHOUT materialising the (S, nbins) histogram: the CDF is only
     ever needed at a handful of bin indices, so each lookup is one fused
     compare+reduce pass over (T, S) and the argmax searches become binary
-    searches (2*ceil(log2 nbins) passes). Replaces a 105M-update scatter-add
-    (~1.25 s on TPU) with ~22 bandwidth-bound passes (~0.2 s).
+    searches (2*ceil(log2 nbins) passes): ~22 bandwidth-bound passes in
+    place of a full-field scatter-add.
     """
     eps = 1e-10
     valid = bins_ts < nbins  # sentinel = NaN / overflow, excluded from counts

@@ -1,7 +1,7 @@
 """
 Device-mesh and sharding helpers.
 
-TPU-native replacement of the reference's Dask scale-out layer
+Device replacement of the reference's Dask scale-out layer
 (helper.py:232-639 — LocalCluster/SLURMCluster over chunked arrays): here
 parallelism is SPMD over a ``jax.sharding.Mesh``.  The dominant data-parallel
 axes mirror the reference's chunking strategy (SURVEY §2.4):
@@ -11,8 +11,10 @@ axes mirror the reference's chunking strategy (SURVEY §2.4):
   axis ("space" mesh axis); XLA inserts no collectives at all.
 * track stage: morphology/CCL need whole-space stencils per timestep ->
   shard *time* ("time" mesh axis); temporal closing and 3-D labeling
-  communicate +-T_fill / +-1 halo slices over ICI, which XLA generates from
-  the sharding annotations on the shifted operands.
+  communicate +-T_fill / +-1 halo slices between devices (NVLink collectives
+  on a multi-GPU host), which XLA generates from the sharding annotations on
+  the shifted operands. The cards of one host are joined all to all, so the
+  mesh follows the algorithm's axes rather than a physical torus.
 
 Use :func:`detect_sharding` / :func:`track_sharding` to place arrays, and
 :func:`constrain` inside jitted code to re-shard between pipeline stages
@@ -64,7 +66,7 @@ def replicated(mesh: Mesh, ndim: int) -> NamedSharding:
 
 
 def constrain(x: jax.Array, sharding: NamedSharding) -> jax.Array:
-    """In-jit sharding constraint (stage-boundary reshard over ICI)."""
+    """In-jit sharding constraint (stage-boundary reshard between devices)."""
     return jax.lax.with_sharding_constraint(x, sharding)
 
 
@@ -76,7 +78,7 @@ def shard_put(x, sharding: NamedSharding) -> jax.Array:
 # ----------------------------------------------------------------------------
 # Default-mesh context: lets the public pipeline (preprocess_data, tracker)
 # run multi-device without threading a mesh through every internal call —
-# the TPU analogue of the reference's ambient Dask client
+# the device analogue of the reference's ambient Dask client
 # (helper.py:232-411: a started cluster is process-global).
 # ----------------------------------------------------------------------------
 

@@ -4,7 +4,7 @@ MarEx-TPU streamed tracking: larger-than-memory merge/split event tracking.
 The reference tracks century-scale datasets by keeping every stage lazy over
 Dask chunks with zarr checkpoints between stages (``/root/reference/README.md:161``,
 ``marEx/track.py:1234-1368``, the zarr-region batched split/merge
-``track.py:3804-4814``). This module is the TPU-native counterpart built on
+``track.py:3804-4814``). This module is the device counterpart built on
 the blockwise scan march (:func:`marex_tpu.ops.march.scan_march` with
 ``resume=``): the input binary-extremes zarr store streams through
 morphology -> per-slice CCL -> area filtering -> the split/merge march ->

@@ -3,7 +3,7 @@
 Multi-device analogue of the reference's LocalCluster-based testing
 (``tests/conftest.py:72-146``): tests run on the CPU backend with 8 virtual
 XLA devices (``--xla_force_host_platform_device_count=8``) so that sharded
-code paths execute real collectives without TPU hardware.
+code paths execute real collectives without accelerator hardware.
 """
 
 import os

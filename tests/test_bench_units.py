@@ -5,6 +5,7 @@ round's performance evidence, so its building blocks get the same coverage
 as product code."""
 
 import json
+import os
 import sys
 
 import numpy as np
@@ -128,11 +129,61 @@ class TestEmitPreference:
         assert out["value"] == 0.0
         assert "Kaboom" in out["metric"]
 
-    def test_oom_marker_detection(self):
-        assert bench._entry_oom({"a": {"error": "RESOURCE_EXHAUSTED: blah"}})
-        assert bench._entry_oom({"a": {"error": "child process crashed (exit -9)"}})
-        assert not bench._entry_oom({"a": {"gpd_per_s": 5.0}})
 
-    def test_estimates_cover_all_configs(self):
-        for cid in bench._CONFIG_ORDER:
-            assert cid in bench._CONFIG_EST_S
+
+class TestSingleProcessDriver:
+    def test_refuses_cpu_unless_pinned(self, monkeypatch):
+        """Without a GPU the bench fails instead of falling back to CPU;
+        JAX_PLATFORMS=cpu pinned explicitly selects the small CPU run."""
+        monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+        with pytest.raises(SystemExit, match="no GPU"):
+            bench._worker_context()
+        monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+        ctx = bench._worker_context()
+        assert ctx["detail"]["platform"] == "cpu"
+        assert ctx["detail"]["device_count"] >= 1 and ctx["detail"]["device_kind"]
+        assert (ctx["ny"], ctx["nx"]) == (90, 180)
+
+    def test_failed_config_is_recorded_and_the_next_runs(self, monkeypatch):
+        monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+        ctx = bench._worker_context()
+
+        def boom():
+            raise RuntimeError("RESOURCE_EXHAUSTED: out of memory")
+
+        ctx["try"]("a", boom)
+        ctx["try"]("b", lambda: {"gpd_per_s": 1.0})
+        assert ctx["detail"]["configs"]["a"]["error"].startswith("RuntimeError: RESOURCE_EXHAUSTED")
+        assert ctx["detail"]["configs"]["b"] == {"gpd_per_s": 1.0}
+
+    def test_config_order_is_the_eight_configs(self):
+        assert sorted(bench._CONFIG_ORDER) == [str(i) for i in range(1, 9)]
+
+
+class TestCompileCache:
+    def test_env_dir_left_to_jax(self, monkeypatch, tmp_path):
+        import jax
+
+        from marex_tpu.helper import enable_compile_cache
+
+        before = jax.config.jax_compilation_cache_dir
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env_cache"))
+        assert enable_compile_cache(str(tmp_path)) == str(tmp_path / "env_cache")
+        assert jax.config.jax_compilation_cache_dir == before  # nothing overridden
+        assert not (tmp_path / ".jax_cache").exists()
+
+    def test_fixed_dir_in_checkout(self, monkeypatch, tmp_path):
+        import jax
+
+        from marex_tpu.helper import enable_compile_cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            path = enable_compile_cache(str(tmp_path))
+            assert path == str(tmp_path / ".jax_cache")
+            assert os.path.isdir(path)
+            assert jax.config.jax_compilation_cache_dir == path
+            assert enable_compile_cache(str(tmp_path)) == path  # same path every call
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)

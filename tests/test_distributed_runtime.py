@@ -2,7 +2,7 @@
 
 Exercises ``helper.start_distributed_cluster`` with REAL ``jax.distributed``
 processes: two local workers join a coordinator, see a 2-process global
-topology, and run a cross-process collective — the TPU-pod analogue of the
+topology, and run a cross-process collective — the multi-process analogue of the
 reference's SLURM cluster launch (helper.py:414-639). The workers are
 subprocesses because jax.distributed.initialize must run before the backend
 initialises in each process.

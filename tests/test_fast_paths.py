@@ -2,7 +2,7 @@
 Direct equivalence tests for the gather/scatter-free fast-path kernels
 against their dense/sort reference implementations.
 
-Each fast path replaces a TPU-hostile random-access pattern (flat gather,
+Each fast path replaces a random-access pattern (flat gather,
 scatter-add, argsort) with fused compare/reduce passes; these tests pin the
 exact output contract so the fast paths can never drift from the reference
 formulations they shadow.

@@ -291,7 +291,7 @@ class TestHelper:
     def test_cluster_info(self):
         info = marEx.helper.get_cluster_info()
         assert info.n_devices >= 1
-        assert info.backend in ("cpu", "tpu", "gpu")
+        assert info.backend in ("cpu", "gpu")
 
     def test_start_local_cluster(self):
         info = marEx.helper.start_local_cluster()
@@ -431,7 +431,7 @@ class TestPackageSurface:
 
 
 class TestFailureTolerance:
-    """Failure detection + elastic recovery (the TPU answer to Dask's
+    """Failure detection + elastic recovery (the device runtime's answer to Dask's
     worker-failure tolerance, reference helper.py:49-66)."""
 
     def test_device_health_check_ok(self):

@@ -1,7 +1,7 @@
 """Memory-ownership semantics of the tracker pipeline: the ownership boxes
 that free full-size fields mid-pipeline, the bit-packed release of the raw
 binary field, the single-use host-label stash, and input donation in detect —
-the machinery that lets production shapes fit a (shared) 16 GB chip."""
+the machinery that bounds device memory at production shapes."""
 
 import numpy as np
 import pandas as pd

@@ -128,6 +128,22 @@ class TestPairExtractionOracle:
         # float32 in-order summation vs float64 oracle: tight tolerance
         np.testing.assert_allclose(got[2], exp[2], rtol=1e-6)
 
+    def test_cell_area_weights_with_overflow(self):
+        # more distinct pairs than slots, with cell weights: the runs past
+        # MP are dropped and the kept slots still sum their own weights
+        # (the weighted scatter's indices stay sorted past the overflow)
+        rng = np.random.default_rng(5)
+        prev = rng.integers(0, 7, (3, 50)).astype(np.int32)
+        cur = rng.integers(0, 7, (3, 50)).astype(np.int32)
+        cw = rng.uniform(0.25, 4.0, (3, 50)).astype(np.float32)
+        MP, stride = 8, 9
+        exp = oracle_pairs(prev, cur, MP, stride, cw)
+        got = run_kernel(prev, cur, MP, stride, cw)
+        assert exp[3] and got[3]
+        np.testing.assert_array_equal(got[0], exp[0])
+        np.testing.assert_array_equal(got[1], exp[1])
+        np.testing.assert_allclose(got[2], exp[2], rtol=1e-6)
+
     def test_cell_area_weighting_bitwise_vs_inorder_sum(self):
         # the kernel must sum each run's weights in ascending-cell order
         # (stable sort), making the result bit-reproducible run to run
